@@ -6,15 +6,12 @@ scales embarrassingly (only BEHZ's psum and the last-residue broadcast
 communicate); the coef axis pays ppermute exchanges for log2(C) butterfly
 stage groups.
 
-On a multi-host pod, run one process per host with
-`ntt_cuda_tpu.parallel.multihost.initialize()` first; this script then
-meshes all devices.  On a single chip it reports the 1-device baseline.
-On CPU (JAX_PLATFORMS=cpu with xla_force_host_platform_device_count=8) it
-demonstrates the harness on virtual devices — useful for verifying the
-collective structure, not for absolute numbers.  The bfv-spmd op runs the
-shard_map/Pallas pipeline and is only meaningful on real TPUs (interpret
-mode executes the kernels through the Pallas evaluator at ~seconds per
-call; its correctness on CPU is covered by tests/test_spmd.py instead).
+One process drives every card of the host; across hosts, run one
+process per host with `ntt_bfv.parallel.multihost.initialize()`
+first.  On a single card it reports the 1-device baseline.  With --cpu
+(virtual devices from xla_force_host_platform_device_count) it rehearses
+the harness and the collective structure; its times are not device
+numbers.
 
 Usage: python benchmarks/scaling.py [--n 131072] [--r 8] [--op ntt|bfv]
 Prints one JSON line per mesh shape.
@@ -42,28 +39,25 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 17)
     ap.add_argument("--r", type=int, default=8)
-    ap.add_argument("--op", default="ntt",
-                    choices=["ntt", "bfv", "bfv-spmd", "bfv-spmd2d",
-                             "mul-spmd"])
+    ap.add_argument("--op", default="ntt", choices=["ntt", "bfv"])
     ap.add_argument("--qbits", type=int, default=55)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (virtual devices; overrides "
-                         "environments that force-register an accelerator)")
+                    help="rehearse on the CPU backend's virtual devices")
     args = ap.parse_args()
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from ntt_cuda_tpu.ops import modmath, ntt
-    from ntt_cuda_tpu.parallel import mesh as mesh_mod, rns as rns_mod, sharded
-    from ntt_cuda_tpu.utils import primegen
+    from ntt_bfv.ops import modmath, ntt
+    from ntt_bfv.parallel import mesh as mesh_mod, rns as rns_mod, sharded
+    from ntt_bfv.utils import primegen
 
     n, r = args.n, args.r
     params = primegen.make_bfv_params(n, args.qbits, r)
     devs = jax.devices()
     D = len(devs)
-    print(f"backend={jax.default_backend()} devices={D} n={n} r={r}",
+    print(f"platform={jax.default_backend()} devices={D} n={n} r={r}",
           file=sys.stderr)
 
     # mesh ladder: (rns, coef) shapes from 1 device up to all of them
@@ -85,44 +79,7 @@ def main() -> None:
         ndev = rns_ax * coef_ax
         mesh = mesh_mod.make_mesh(rns=rns_ax, coef=coef_ax,
                                   devices=devs[:ndev])
-        if args.op == "bfv-spmd2d":
-            # full 2-D program: fused kernels per (modulus, coef) shard
-            from ntt_cuda_tpu.parallel import spmd2d
-            try:
-                sctx = spmd2d.Spmd2DBFVContext.build(params, mesh)
-            except ValueError as e:
-                print(f"skip mesh ({rns_ax},{coef_ax}): {e}",
-                      file=sys.stderr)
-                continue
-            _, pk = sctx.keygen()
-            m = jnp.asarray(np.arange(n, dtype=np.uint64) % params.t)
-            dt = _bench(sctx.encrypt, (pk, m))
-        elif args.op == "mul-spmd":
-            # sharded EvalMult + relinearization (parallel/spmd_mult.py):
-            # row-local transforms, 4 all_gathers + 1 psum per multiply
-            from ntt_cuda_tpu.parallel import spmd, spmd_mult
-            if coef_ax != 1:
-                continue
-            sctx = spmd.SpmdBFVContext.build(params,
-                                             devices=devs[:rns_ax])
-            mctx = spmd_mult.SpmdMultContext.build(sctx)
-            sk, pk = sctx.keygen()
-            m = jnp.asarray(np.arange(n, dtype=np.uint64) % params.t)
-            ct1 = sctx.encrypt(pk, m, nonce=1)
-            ct2 = sctx.encrypt(pk, m, nonce=2)
-            rlk = mctx.relin_keygen(sk)
-            dt = _bench(lambda a, b: mctx.mul(a, b, rlk=rlk), (ct1, ct2))
-            # explicit shard_map pipeline: rns-only mesh, fused Pallas
-            # kernels per shard (the production multi-chip path)
-            from ntt_cuda_tpu.parallel import spmd
-            if coef_ax != 1:
-                continue
-            sctx = spmd.SpmdBFVContext.build(params,
-                                             devices=devs[:rns_ax])
-            _, pk = sctx.keygen()
-            m = jnp.asarray(np.arange(n, dtype=np.uint64) % params.t)
-            dt = _bench(sctx.encrypt, (pk, m))
-        elif args.op == "ntt":
+        if args.op == "ntt":
             q, psi = params.q[0], params.psi[0]
             tables = ntt.NTTTables.build([q], [psi], n)
             ms = modmath.ModulusSet.from_moduli([q])

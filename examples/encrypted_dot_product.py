@@ -18,8 +18,8 @@ import numpy as np
 def encrypted_dot_product(n: int = 2048, length: int = 256, seed: int = 0,
                           verbose: bool = True):
     import jax.numpy as jnp  # noqa: F401  (jax initialized lazily)
-    from ntt_cuda_tpu.models import bfv, encoder
-    from ntt_cuda_tpu.utils import primegen
+    from ntt_bfv.models import bfv, encoder
+    from ntt_bfv.utils import primegen
 
     t = primegen.find_plain_modulus(n, 17)
     params = primegen.make_bfv_params(n, 45, 3, t=t)

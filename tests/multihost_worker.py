@@ -1,18 +1,19 @@
 """Worker for the 2-process multi-host smoke test (run by
 tests/test_multihost.py, one subprocess per controller).
 
-Each process owns 2 virtual CPU devices; the pair forms a 4-device
-('rns', 'coef') pod mesh.  Exercises the previously-unexecuted runtime
-path (parallel/multihost.py): jax.distributed.initialize, pod_mesh, a
-cross-process psum, and a tiny SpmdBFV keygen whose addressable shards
-must be bit-identical to the single-chip reference pipeline.
+Each process owns 2 virtual CPU devices; the pair forms a 4-device pod
+mesh.  Exercises the multi-process runtime path (parallel/multihost.py):
+jax.distributed.initialize, pod_mesh, a cross-process psum, and the
+GSPMD ShardedBFVContext (parallel/rns.py) over an 'rns' axis that spans
+both processes, whose keys, ciphertexts and plaintexts must be
+bit-identical to the single-device pipeline.
 """
 
 import os
 import sys
 
 # Script-mode sys.path holds tests/, not the repo root: make the package
-# importable even when ntt_cuda_tpu isn't pip-installed on this machine.
+# importable even when ntt_bfv isn't pip-installed on this machine.
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 coordinator, num, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
@@ -25,7 +26,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from ntt_cuda_tpu.parallel import multihost  # noqa: E402
+from ntt_bfv.parallel import multihost  # noqa: E402
 
 multihost.initialize(coordinator_address=coordinator, num_processes=num,
                      process_id=pid)
@@ -35,16 +36,15 @@ assert multihost.is_coordinator() == (pid == 0)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 from jax import shard_map  # noqa: E402
 
-# ---- pod_mesh + one cross-process (DCN-axis) psum -------------------------
-mesh = multihost.pod_mesh()          # rns=2 across processes, coef=2 within
-assert mesh.shape == {"rns": 2, "coef": 2}, mesh.shape
-# each process's devices sit in one rns row (coef rides the intra-host axis)
-for rns_row in range(2):
-    owners = {d.process_index for d in mesh.devices[rns_row]}
-    assert owners == {rns_row}, (rns_row, owners)
+# ---- pod_mesh + one cross-process psum ------------------------------------
+mesh = multihost.pod_mesh()          # every device on 'rns' by default
+assert mesh.shape == {"rns": 4, "coef": 1}, mesh.shape
+# jax.devices() is process-major: each process owns two adjacent rows
+for row in range(4):
+    assert mesh.devices[row][0].process_index == row // 2
 
 
 @jax.jit
@@ -54,49 +54,38 @@ def psum_over_rns(x):
     return fn(x)
 
 
-x = jnp.arange(4.0)                  # shard i holds [2i, 2i+1]
+x = jnp.arange(8.0)                  # shard i holds [2i, 2i+1]
 out = psum_over_rns(x)
-np.testing.assert_allclose(np.asarray(out), np.array([2.0, 4.0]))
+np.testing.assert_allclose(np.asarray(out.addressable_shards[0].data),
+                           np.array([12.0, 16.0]))
 
-# ---- tiny SpmdBFV keygen across the two processes -------------------------
-from ntt_cuda_tpu.models import bfv  # noqa: E402
-from ntt_cuda_tpu.parallel import spmd  # noqa: E402
-from ntt_cuda_tpu.utils import primegen  # noqa: E402
+# ---- GSPMD BFV keygen -> encrypt -> decrypt across the two processes -------
+from ntt_bfv.models import bfv  # noqa: E402
+from ntt_bfv.parallel import mesh as mesh_mod, rns  # noqa: E402
+from ntt_bfv.utils import primegen  # noqa: E402
 
 params = primegen.make_bfv_params(2048, 40, 2)
-rns_mesh_devs = [mesh.devices[0][0], mesh.devices[1][0]]  # one per process
-ctx = spmd.SpmdBFVContext.build(params, devices=rns_mesh_devs,
-                                interpret=True)
+rns_mesh = mesh_mod.make_mesh(rns=2, devices=[mesh.devices[0][0],
+                                              mesh.devices[2][0]])
+ctx = rns.ShardedBFVContext.build(params, rns_mesh)
 sk_s, pk_s = ctx.keygen()
 
-ref = bfv.BFVContext.build(params, backend="xla")
+ref = bfv.BFVContext.build(params)
 sk_r, pk_r = ref.keygen()            # deterministic, same in both processes
 
-for got, exp in ((sk_s, sk_r), (pk_s, pk_r)):
+
+def check(got, exp):
     exp_np = np.asarray(exp)
     for shard in got.addressable_shards:
         np.testing.assert_array_equal(np.asarray(shard.data),
                                       exp_np[shard.index])
 
-# ---- full encrypt -> decrypt round-trip riding the DCN rns axis -----------
-# (VERDICT r4 weak #5: the smoke test stopped at keygen + one psum; this
-# drives the whole SPMD BFV pipeline — encrypt's cross-shard ra psum and
-# decrypt's last-residue collectives all cross the process boundary.)
+
+check(sk_s, sk_r)
+check(pk_s, pk_r)
 m_np = np.arange(params.n, dtype=np.uint64) % params.t
-ct_s = ctx.encrypt(pk_s, jnp.asarray(m_np), nonce=5)
-ct_r = ref.encrypt(pk_r, jnp.asarray(m_np), nonce=5)
-ct_r_np = np.asarray(ct_r)
-for shard in ct_s.addressable_shards:
-    idx = shard.index
-    # SPMD ciphertexts are (2, r, n) padded; the reference single-chip
-    # layout is (2, r-1, n) — rows beyond r-1 are the pad
-    data = np.asarray(shard.data)
-    rows = range(*idx[1].indices(params.r))
-    for local_i, row in enumerate(rows):
-        if row < params.r - 1:
-            np.testing.assert_array_equal(data[:, local_i, :],
-                                          ct_r_np[:, row, :])
-dec = np.asarray(ctx.decrypt(sk_s, ct_s))
-np.testing.assert_array_equal(dec, m_np)
+ct_s = ctx.encrypt(pk_s, m_np)
+check(ct_s, ref.encrypt(pk_r, m_np))
+check(ctx.decrypt(sk_s, ct_s), m_np)
 
 print(f"proc {pid}: multihost smoke OK", flush=True)

@@ -9,16 +9,16 @@ contract SEAL 3.5's BFV evaluator implements.
 import numpy as np
 import pytest
 
-from ntt_cuda_tpu.ops import behz
-from ntt_cuda_tpu.params import get_bfv_params
-from ntt_cuda_tpu.utils import golden, primegen
+from ntt_bfv.ops import behz
+from ntt_bfv.params import get_bfv_params
+from ntt_bfv.utils import golden, primegen
 
-SET = "4k_3q"
-
-
-@pytest.fixture(scope="module")
-def setup():
-    p = get_bfv_params(SET)
+@pytest.fixture(scope="module", params=["4k_3q", "gen_2048_r5"])
+def setup(request):
+    if request.param == "4k_3q":
+        p = get_bfv_params("4k_3q")
+    else:
+        p = primegen.make_bfv_params(2048, 50, 5)
     aux = behz.AuxBase.build(p)
     mc = behz.MultConsts.build(p, aux)
     return p, aux, mc
@@ -156,3 +156,37 @@ def test_batch_dims(setup, rng):
     batched = np.asarray(behz.rns_to_bsk(x, mc))
     assert batched.shape == (3, k + 1, 64)
     np.testing.assert_array_equal(batched[1], one)
+
+
+@pytest.mark.parametrize("lead", [(2,), (2, 3)])
+def test_conversions_batched_vs_golden(setup, rng, lead):
+    """Leading batch dims through all three conversions, each slice
+    against the exact-integer mirrors."""
+    p, aux, mc = setup
+    k = p.r - 1
+    qs = p.q[:k]
+    n = 32
+    q_prod = 1
+    for q in qs:
+        q_prod *= q
+    x = np.empty(lead + (k, n), dtype=np.uint64)
+    xb = np.empty(lead + (k + 1, n), dtype=np.uint64)
+    for idx in np.ndindex(*lead):
+        vals = [int.from_bytes(rng.bytes(16), "little") % q_prod
+                for _ in range(n)]
+        x[idx] = _residues(vals, qs)
+        xb[idx] = _residues(vals, aux.bsk)
+    r2b = np.asarray(behz.rns_to_bsk(x, mc))
+    ff = np.asarray(behz.fast_floor(x, xb, mc))
+    b2q = np.asarray(behz.bsk_to_q(ff, mc))
+    for idx in np.ndindex(*lead):
+        rows = [list(r) for r in x[idx]]
+        np.testing.assert_array_equal(r2b[idx], np.array(
+            golden.behz_rns_to_bsk(rows, qs, aux.bsk, aux.m_tilde),
+            dtype=np.uint64))
+        np.testing.assert_array_equal(ff[idx], np.array(
+            golden.behz_fast_floor(rows, [list(r) for r in xb[idx]], qs,
+                                   aux.bsk, p.t), dtype=np.uint64))
+        np.testing.assert_array_equal(b2q[idx], np.array(
+            golden.behz_bsk_to_q([list(r) for r in ff[idx]], qs, aux.b,
+                                 aux.m_sk), dtype=np.uint64))

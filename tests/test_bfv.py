@@ -13,10 +13,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ntt_cuda_tpu.models import bfv
-from ntt_cuda_tpu.ops import ntt, sampling
-from ntt_cuda_tpu.params import get_bfv_params
-from ntt_cuda_tpu.utils import golden
+from ntt_bfv.models import bfv
+from ntt_bfv.ops import sampling
+from ntt_bfv.params import get_bfv_params
+from ntt_bfv.utils import golden
 
 FIX = Path(__file__).parent / "fixtures"
 
@@ -96,25 +96,6 @@ def test_roundtrip_other_sets(name, rng):
     np.testing.assert_array_equal(got, m)
 
 
-@pytest.mark.slow
-def test_pallas_backend_bitexact(ctx4k, rng):
-    """The fused Pallas NTT backend produces bit-identical keygen /
-    encrypt / decrypt results to the XLA backend (interpret mode on CPU;
-    on TPU the same kernel runs compiled)."""
-    p = ctx4k.params
-    ctxp = bfv.BFVContext.build(p, backend="pallas-interpret")
-    sk_x, pk_x = ctx4k.keygen()
-    sk_p, pk_p = ctxp.keygen()
-    np.testing.assert_array_equal(np.asarray(sk_p), np.asarray(sk_x))
-    np.testing.assert_array_equal(np.asarray(pk_p), np.asarray(pk_x))
-    m = jnp.asarray(rng.integers(0, p.t, p.n, dtype=np.uint64))
-    ct_x = ctx4k.encrypt(pk_x, m)
-    ct_p = ctxp.encrypt(pk_p, m)
-    np.testing.assert_array_equal(np.asarray(ct_p), np.asarray(ct_x))
-    out = ctxp.decrypt(sk_p, ct_p)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(m))
-
-
 def test_encrypt_nonce_freshness(ctx4k, rng):
     """Distinct nonces give distinct randomness (fresh u/e draws) and every
     ciphertext still decrypts; nonce=0 is the reference's deterministic
@@ -141,11 +122,11 @@ def test_api_validation_messages():
     """Public-API shape/dtype validation fails fast with clear errors
     instead of deep-kernel reshape failures (VERDICT round 1, weak #8)."""
     import jax.numpy as jnp
-    from ntt_cuda_tpu.models.bfv import BFVContext, check_residues
-    from ntt_cuda_tpu.params import get_bfv_params
+    from ntt_bfv.models.bfv import BFVContext, check_residues
+    from ntt_bfv.params import get_bfv_params
 
     p = get_bfv_params("4k_3q")
-    ctx = BFVContext.build(p, backend="xla")
+    ctx = BFVContext.build(p)
     sk, pk = ctx.keygen()
     m = jnp.zeros((p.n,), jnp.uint64)
 
@@ -167,96 +148,6 @@ def test_api_validation_messages():
     out2 = ctx.encrypt(pk, jnp.zeros((p.n,), jnp.int32))
     np.testing.assert_array_equal(np.asarray(out2), np.asarray(ct))
     assert check_residues("x", np.zeros((2, 2), np.uint32), (2, 2)).dtype == jnp.uint64
-
-
-def test_spmd_api_validation():
-    import jax
-    if len(jax.devices()) < 2:
-        pytest.skip("needs multiple devices")
-    from ntt_cuda_tpu.parallel import spmd
-    p = get_bfv_params("4k_3q")
-    # r=3 not divisible by 8: build on 1 device is fine for validation
-    sctx = spmd.SpmdBFVContext.build(p, devices=jax.devices()[:1])
-    with pytest.raises(ValueError, match="pk: expected shape"):
-        sctx.encrypt(np.zeros((2, p.r - 1, p.n), np.uint64),
-                     np.zeros(p.n, np.uint64))
-    with pytest.raises(ValueError, match="padded"):
-        sctx.decrypt(np.zeros((p.r, p.n), np.uint64),
-                     np.zeros((2, p.r - 1, p.n), np.uint64))
-
-
-def test_decrypt_golden_vectors_pallas_fused(ctx4k):
-    """The fully fused Pallas decrypt back half (dyadic + INTT + tail in
-    one kernel, bfv_tail.decrypt_fused) is bit-exact on the reference's
-    embedded golden ciphertext."""
-    p = ctx4k.params
-    ctxp = bfv.BFVContext.build(p, backend="pallas-interpret")
-    c0 = np.load(FIX / "dec4k_c0.npy")
-    c1 = np.load(FIX / "dec4k_c1.npy")
-    sk = np.load(FIX / "dec4k_sk_ntt.npy")
-    ct = jnp.asarray(np.stack([c0, c1]))
-    m = np.asarray(ctxp.decrypt(jnp.asarray(sk), ct))
-    np.testing.assert_array_equal(m, np.arange(p.n, dtype=np.uint64) % 10)
-
-
-@pytest.mark.slow
-def test_pallas_backend_bitexact_8k(rng):
-    """Fused-kernel pipelines vs XLA at a second (n, r) geometry
-    (n=8192, r=4) — covers encrypt_fused / ntt_forward_addneg at
-    non-4k shapes."""
-    p = get_bfv_params("8k_4q")
-    ctx_x = bfv.BFVContext.build(p, backend="xla")
-    ctx_p = bfv.BFVContext.build(p, backend="pallas-interpret")
-    sk_x, pk_x = ctx_x.keygen()
-    sk_p, pk_p = ctx_p.keygen()
-    np.testing.assert_array_equal(np.asarray(sk_p), np.asarray(sk_x))
-    np.testing.assert_array_equal(np.asarray(pk_p), np.asarray(pk_x))
-    m = jnp.asarray(rng.integers(0, p.t, p.n, dtype=np.uint64))
-    ct_x = ctx_x.encrypt(pk_x, m)
-    ct_p = ctx_p.encrypt(pk_p, m)
-    np.testing.assert_array_equal(np.asarray(ct_p), np.asarray(ct_x))
-    out = ctx_p.decrypt(sk_p, ct_p)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(m))
-
-
-def test_forward_addneg_fused_bitexact(rng):
-    """ntt_forward_addneg == poly_add_negate then ntt_forward."""
-    from ntt_cuda_tpu.ops import modmath, ntt_pallas, poly
-    p = get_bfv_params("4k_3q")
-    ftab = ntt_pallas.tables_for(p)
-    ms = modmath.modulus_set(p)
-    x = jnp.asarray(np.stack(
-        [rng.integers(0, q, p.n, dtype=np.uint64) for q in p.q]))
-    e = jnp.asarray(np.stack(
-        [rng.integers(0, q, p.n, dtype=np.uint64) for q in p.q]))
-    # include s == 0 lanes (the negate fixup boundary)
-    x = x.at[:, :4].set(0)
-    e = e.at[:, :4].set(0)
-    ref = np.asarray(ntt_pallas.ntt_forward(
-        poly.poly_add_negate(x, e, ms), ftab, interpret=True))
-    got = np.asarray(ntt_pallas.ntt_forward_addneg(x, e, ftab,
-                                                   interpret=True))
-    np.testing.assert_array_equal(got, ref)
-
-
-@pytest.mark.slow
-def test_pallas_roundtrip_minimum_r(rng):
-    """r=2 (one kept residue) exercises encrypt_fused's grid-edge: the
-    last-residue step's garbage output slot is the SAME row the only
-    kept residue overwrites."""
-    from ntt_cuda_tpu.utils import primegen
-    p = primegen.make_bfv_params(512, 28, 2)
-    ctx_x = bfv.BFVContext.build(p, backend="xla")
-    ctx_p = bfv.BFVContext.build(p, backend="pallas-interpret")
-    sk, pk = ctx_x.keygen()
-    sk_p, pk_p = ctx_p.keygen()
-    np.testing.assert_array_equal(np.asarray(pk_p), np.asarray(pk))
-    m = jnp.asarray(rng.integers(0, p.t, p.n, dtype=np.uint64))
-    ct_x = ctx_x.encrypt(pk, m)
-    ct_p = ctx_p.encrypt(pk_p, m)
-    np.testing.assert_array_equal(np.asarray(ct_p), np.asarray(ct_x))
-    out = np.asarray(ctx_p.decrypt(sk_p, ct_p))
-    np.testing.assert_array_equal(out, np.asarray(m))
 
 
 def test_homomorphic_add_sub(ctx4k, rng):

@@ -4,8 +4,8 @@ SURVEY.md §4, as subcommands)."""
 import numpy as np
 import pytest
 
-from ntt_cuda_tpu import cli, get_bfv_params
-from ntt_cuda_tpu.utils import serialize
+from ntt_bfv import cli, get_bfv_params
+from ntt_bfv.utils import serialize
 
 
 def test_ntt_test_driver(capsys):
@@ -53,48 +53,8 @@ def test_serialize_rejects_mismatched_params(tmp_path):
 
 
 def test_ntt_test_30bit_family():
-    from ntt_cuda_tpu import cli
+    from ntt_bfv import cli
     assert cli.main(["ntt-test", "--n", "2048", "--family", "30bit"]) == 0
-
-
-@pytest.mark.slow
-def test_padded_ciphertext_serialization(tmp_path, rng):
-    """SPMD padded (2, r, n) ciphertexts round-trip through .npz and
-    convert between layouts; a zero-padded slot decrypts identically
-    (the dropped-modulus slot is never consumed)."""
-    import jax
-    import jax.numpy as jnp
-    from ntt_cuda_tpu.models import bfv
-    from ntt_cuda_tpu.parallel import spmd
-    from ntt_cuda_tpu.params import get_bfv_params
-    from ntt_cuda_tpu.utils import serialize
-
-    p = get_bfv_params("4k_3q")
-    sctx = spmd.SpmdBFVContext.build(p, devices=jax.devices()[:1])
-    sk, pk = sctx.keygen()
-    m = np.arange(p.n, dtype=np.uint64) % p.t
-    ct = np.asarray(sctx.encrypt(pk, jnp.asarray(m)))   # (2, r, n) padded
-
-    f = tmp_path / "ct_padded.npz"
-    serialize.save_ciphertext(f, p, ct)
-    back = serialize.load_ciphertext(f, p)
-    np.testing.assert_array_equal(back, ct)
-    dropped = serialize.load_ciphertext(f, p, layout="dropped")
-    assert dropped.shape == (2, p.r - 1, p.n)
-    # dropped layout decrypts on the single-chip context
-    ctx = bfv.BFVContext.build(p, backend="xla")
-    out = np.asarray(ctx.decrypt(sk, jnp.asarray(dropped)))
-    np.testing.assert_array_equal(out, m)
-    # zero-padded layout decrypts on the SPMD context
-    repad = serialize.load_ciphertext(f, p, layout="padded")
-    out2 = np.asarray(sctx.decrypt(sk, jnp.asarray(repad)))
-    np.testing.assert_array_equal(out2, m)
-    # re-saving the dropped form and padding it back also decrypts
-    f2 = tmp_path / "ct_dropped.npz"
-    serialize.save_ciphertext(f2, p, dropped)
-    repad2 = serialize.load_ciphertext(f2, p, layout="padded")
-    out3 = np.asarray(sctx.decrypt(sk, jnp.asarray(repad2)))
-    np.testing.assert_array_equal(out3, m)
 
 
 def test_serialize_eval_keys_roundtrip(tmp_path):

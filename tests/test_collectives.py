@@ -1,23 +1,22 @@
-"""Communication-structure assertions on the compiled HLO.
+"""Communication structure of the coefficient-sharded NTT, read from the
+compiled HLO.
 
-The SPMD designs claim: one psum in encrypt, one (stacked) psum in
-decrypt, zero collectives in 1-D keygen, and exactly log2(C) ppermutes
-per cross-shard transform.  Bit-exactness tests cannot catch GSPMD or
-shard_map silently inserting extra all-gathers/reshards (they would be
-correct but slow at scale) — so these tests compile the pipelines on the
-virtual mesh and count the collective ops in the HLO itself.
+The design (parallel/sharded.py) claims exactly log2(C) collective
+permutes per transform over C coefficient shards and nothing else.
+Bit-exactness tests cannot catch the partitioner silently inserting
+all-gathers (correct but slow at scale), so these tests compile the
+transforms on a virtual mesh and count the collectives in the HLO.
 """
 
 import re
 
 import jax
+import numpy as np
 import pytest
 
-from ntt_cuda_tpu.parallel import mesh as mesh_mod, spmd, spmd2d
-from ntt_cuda_tpu.utils import primegen
-
-requires_8dev = pytest.mark.skipif(len(jax.devices()) < 8,
-                                   reason="needs 8 devices")
+from ntt_bfv.ops import modmath, ntt
+from ntt_bfv.parallel import mesh as mesh_mod, sharded
+from ntt_bfv.utils import primegen
 
 COLLECTIVES = ("all-reduce", "all-gather", "all-to-all",
                "collective-permute", "reduce-scatter")
@@ -35,72 +34,43 @@ def _collective_counts(lowered):
     return counts
 
 
-@pytest.fixture(scope="module")
-def spmd_ctx():
-    p = primegen.make_bfv_params(1024, 55, 8)
-    return p, spmd.SpmdBFVContext.build(p)
-
-
-@pytest.fixture(scope="module")
-def spmd2d_ctx():
-    p = primegen.make_bfv_params(1024, 55, 4)
-    mesh = mesh_mod.make_mesh(rns=2, coef=4)
-    return p, spmd2d.Spmd2DBFVContext.build(p, mesh)
-
-
-@requires_8dev
-@pytest.mark.slow
-def test_spmd_keygen_has_zero_collectives(spmd_ctx):
-    _, sctx = spmd_ctx
-    counts = _collective_counts(sctx.lowered_keygen())
-    assert counts == {k: 0 for k in COLLECTIVES}, counts
-
-
-@requires_8dev
-@pytest.mark.slow
-def test_spmd_encrypt_has_exactly_one_psum(spmd_ctx):
-    import jax.numpy as jnp
-    p, sctx = spmd_ctx
-    pk = jnp.zeros((2, p.r, p.n), jnp.uint64)
-    m = jnp.zeros((p.n,), jnp.uint64)
-    counts = _collective_counts(sctx.lowered_encrypt(pk, m))
+@pytest.mark.parametrize("coef", [2, 4, 8])
+def test_sharded_ntt_permute_count(coef):
+    if len(jax.devices()) < coef:
+        pytest.skip(f"needs {coef} devices")
+    p = primegen.make_bfv_params(1024, 30, 2)
+    mesh = mesh_mod.make_mesh(rns=1, coef=coef)
+    tables = ntt.tables_for(p)
+    ms = modmath.modulus_set(p)
+    x = jax.device_put(np.zeros((p.r, p.n), np.uint64),
+                       mesh_mod.residue_sharding(mesh, shard_coef=True))
+    args = (x,
+            jax.device_put(tables.psi_mont, mesh_mod.table_sharding(mesh)),
+            jax.device_put(ms.q, mesh_mod.const_sharding(mesh)),
+            jax.device_put(ms.qinv_neg, mesh_mod.const_sharding(mesh)))
     expect = {k: 0 for k in COLLECTIVES}
-    expect["all-reduce"] = 1           # the adjusted-last-residue psum
-    assert counts == expect, counts
+    expect["collective-permute"] = coef.bit_length() - 1
+    for make in (sharded.sharded_ntt_forward, sharded.sharded_ntt_inverse):
+        counts = _collective_counts(make(mesh, p.n).lower(*args))
+        assert counts == expect, (make.__name__, counts)
 
 
-@requires_8dev
-def test_spmd_decrypt_has_exactly_one_psum(spmd_ctx):
+def test_rns_keygen_gathers_no_residue_tensor():
+    """GSPMD keygen over rns=4 keeps every (r, n) residue tensor sharded:
+    the only gathers move per-coefficient draws shared by all moduli,
+    never a u64 tensor with a modulus axis."""
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 devices")
     import jax.numpy as jnp
-    p, sctx = spmd_ctx
-    sk = jnp.zeros((p.r, p.n), jnp.uint64)
-    ct = jnp.zeros((2, p.r, p.n), jnp.uint64)
-    counts = _collective_counts(sctx.lowered_decrypt(sk, ct))
-    expect = {k: 0 for k in COLLECTIVES}
-    expect["all-reduce"] = 1           # the stacked BEHZ-partials psum
-    assert counts == expect, counts
+    from ntt_bfv.models import bfv
+    from ntt_bfv.parallel import rns
 
-
-@requires_8dev
-@pytest.mark.slow
-def test_spmd2d_collective_budget(spmd2d_ctx):
-    """(rns=2, coef=4) mesh: each cross-shard transform costs exactly
-    log2(C)=2 collective-permutes; keygen runs 3 transforms (6 permutes,
-    no psum), encrypt/decrypt 2 transforms + one psum each.  No
-    all-gathers, no all-to-alls, no reduce-scatters anywhere."""
-    import jax.numpy as jnp
-    p, sctx = spmd2d_ctx
-    pk = jnp.zeros((2, p.r, p.n), jnp.uint64)
-    m = jnp.zeros((p.n,), jnp.uint64)
-    sk = jnp.zeros((p.r, p.n), jnp.uint64)
-    ct = jnp.zeros((2, p.r, p.n), jnp.uint64)
-
-    kg = _collective_counts(sctx.lowered_keygen())
-    assert kg["all-reduce"] == 0 and kg["collective-permute"] == 6, kg
-    enc = _collective_counts(sctx.lowered_encrypt(pk, m))
-    assert enc["all-reduce"] == 1 and enc["collective-permute"] == 4, enc
-    dec = _collective_counts(sctx.lowered_decrypt(sk, ct))
-    assert dec["all-reduce"] == 1 and dec["collective-permute"] == 4, dec
-    for c in (kg, enc, dec):
-        assert c["all-gather"] == 0 and c["all-to-all"] == 0 \
-            and c["reduce-scatter"] == 0, c
+    p = primegen.make_bfv_params(1024, 50, 4)
+    ctx = rns.ShardedBFVContext.build(p, mesh_mod.make_mesh(rns=4)).inner
+    txt = bfv._keygen_jit.lower(
+        jnp.asarray(0, jnp.uint64), ctx.ms_full, ctx.tables_full, p.n, p.r,
+        ctx.uniform_spec).compile().as_text()
+    moved = re.findall(r"=\s+(\S+)\s+(?:all-gather|all-to-all)(?:-start)?\(",
+                       txt)
+    assert moved, "expected the draw gathers"
+    assert not [s for s in moved if s.startswith("u64[") and "," in s], moved

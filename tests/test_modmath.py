@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ntt_cuda_tpu.ops import modmath
-from ntt_cuda_tpu.params import get_bfv_params
-from ntt_cuda_tpu.utils import hostmath as hm
+from ntt_bfv.ops import modmath
+from ntt_bfv.params import get_bfv_params
+from ntt_bfv.utils import hostmath as hm
 
 QS = [
     68719403009,           # 37-bit (4k_3q)
@@ -117,8 +117,8 @@ def test_poly_sub_correct(rng):
     """poly_sub is the CORRECT subtraction, not the reference's buggy
     kernel (poly_arithmetic.cuh:167-178 never subtracts b)."""
     import jax.numpy as jnp
-    from ntt_cuda_tpu.ops import modmath as mm, poly
-    from ntt_cuda_tpu.params import get_bfv_params
+    from ntt_bfv.ops import modmath as mm, poly
+    from ntt_bfv.params import get_bfv_params
     p = get_bfv_params("4k_3q")
     ms = mm.modulus_set(p)
     a = np.stack([rng.integers(0, q, 64, dtype=np.uint64) for q in p.q])
@@ -131,8 +131,8 @@ def test_poly_sub_correct(rng):
 
 def test_poly_add_scalar(rng):
     import jax.numpy as jnp
-    from ntt_cuda_tpu.ops import modmath as mm, poly
-    from ntt_cuda_tpu.params import get_bfv_params
+    from ntt_bfv.ops import modmath as mm, poly
+    from ntt_bfv.params import get_bfv_params
     p = get_bfv_params("4k_3q")
     ms = mm.modulus_set(p)
     a = np.stack([rng.integers(0, q, 64, dtype=np.uint64) for q in p.q])

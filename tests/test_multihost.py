@@ -1,9 +1,8 @@
-"""Execute the multi-host runtime (parallel/multihost.py) for real: two
-OS processes, each a JAX controller with 2 virtual CPU devices, form a
-4-device pod mesh, run a cross-process psum and a tiny SpmdBFV keygen
-(tests/multihost_worker.py).  SURVEY.md §2.2's distributed backend —
-this turns the DCN path from 'written' into 'executed' (VERDICT round-2
-item 5)."""
+"""Execute the multi-process runtime (parallel/multihost.py) for real:
+two OS processes, each a JAX controller with 2 virtual CPU devices, form
+a 4-device pod mesh, run a cross-process psum and a GSPMD BFV
+keygen/encrypt/decrypt over an 'rns' axis spanning both processes
+(tests/multihost_worker.py).  SURVEY.md §2.2's distributed backend."""
 
 import os
 import socket

@@ -1,6 +1,6 @@
 """Native C++ host-math runtime vs the pure-Python reference implementations.
 
-The native layer (ntt_cuda_tpu/native/ntt_host.cpp) is the TPU-native
+The native layer (ntt_bfv/native/ntt_host.cpp) is the
 equivalent of the reference's host-side C++ (uint128.h, helper.h,
 parameter.h precompute, distributions.cuh Salsa20); every entry point must
 be bit-identical to the exact-integer Python versions it accelerates.
@@ -9,9 +9,9 @@ be bit-identical to the exact-integer Python versions it accelerates.
 import numpy as np
 import pytest
 
-from ntt_cuda_tpu import native
-from ntt_cuda_tpu.params import get_params
-from ntt_cuda_tpu.utils import golden, hostmath as hm
+from ntt_bfv import native
+from ntt_bfv.params import get_params
+from ntt_bfv.utils import golden, hostmath as hm
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -51,19 +51,6 @@ def test_geometric_row():
     for i in range(64):
         assert int(got[i]) == v
         v = (v * g) % q
-
-
-def test_shoup_planes(rng):
-    q = get_params(4096)[0]
-    vals = rng.integers(0, q, (5, 128), dtype=np.uint64)
-    planes = native.shoup_planes(vals, q)
-    assert planes.shape == (4, 5, 128)
-    w = planes[0].astype(np.uint64) | (planes[1].astype(np.uint64) << 32)
-    wp = planes[2].astype(np.uint64) | (planes[3].astype(np.uint64) << 32)
-    np.testing.assert_array_equal(w, vals)
-    for i in range(5):
-        for j in range(0, 128, 17):
-            assert int(wp[i, j]) == (int(vals[i, j]) << 64) // q
 
 
 def test_schoolbook_negacyclic_matches_python(rng):

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ntt_cuda_tpu.ops import modmath, ntt
-from ntt_cuda_tpu.params import get_bfv_params, get_params
-from ntt_cuda_tpu.utils import golden, hostmath as hm
+from ntt_bfv.ops import modmath, ntt
+from ntt_bfv.params import get_bfv_params, get_params
+from ntt_bfv.utils import golden, hostmath as hm
 
 
 def _single_modulus_setup(n, family="60bit"):
@@ -22,9 +22,15 @@ def _single_modulus_setup(n, family="60bit"):
     return q, psi, psiinv, tables, ms
 
 
-@pytest.mark.parametrize("n", [2048, 4096])
-def test_forward_matches_golden(rng, n):
-    q, psi, psiinv, tables, ms = _single_modulus_setup(n)
+# every published size of both families: the 55-bit family of the BFV
+# sets (n = 2^11..2^15) and the 30-bit family (n = 2^11..2^16)
+GRID = [(n, "60bit") for n in (2048, 4096, 8192, 16384, 32768)] + \
+    [(n, "30bit") for n in (2048, 4096, 8192, 16384, 32768, 65536)]
+
+
+@pytest.mark.parametrize("n,family", GRID)
+def test_forward_matches_golden(rng, n, family):
+    q, psi, psiinv, tables, ms = _single_modulus_setup(n, family)
     a = rng.integers(0, q, n, dtype=np.uint64)
     pt, pit = hm.psi_tables(psi, psiinv, q, n)
     exp = golden.ntt_forward(a, pt, q, n)
@@ -32,9 +38,9 @@ def test_forward_matches_golden(rng, n):
     np.testing.assert_array_equal(got, np.array(exp, dtype=np.uint64))
 
 
-@pytest.mark.parametrize("n", [2048, 4096])
-def test_inverse_matches_golden(rng, n):
-    q, psi, psiinv, tables, ms = _single_modulus_setup(n)
+@pytest.mark.parametrize("n,family", GRID)
+def test_inverse_matches_golden(rng, n, family):
+    q, psi, psiinv, tables, ms = _single_modulus_setup(n, family)
     a = rng.integers(0, q, n, dtype=np.uint64)
     pt, pit = hm.psi_tables(psi, psiinv, q, n)
     exp = golden.ntt_inverse(a, pit, q, n)

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from ntt_cuda_tpu.models import bfv
-from ntt_cuda_tpu.ops import modmath, ntt
-from ntt_cuda_tpu.parallel import mesh as mesh_mod, rns as rns_mod, sharded
-from ntt_cuda_tpu.params import get_bfv_params, get_params
-from ntt_cuda_tpu.utils import primegen
+from ntt_bfv.models import bfv
+from ntt_bfv.ops import modmath, ntt
+from ntt_bfv.parallel import mesh as mesh_mod, rns as rns_mod, sharded
+from ntt_bfv.params import get_bfv_params, get_params
+from ntt_bfv.utils import primegen
 
 
 requires_8dev = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
@@ -46,6 +46,29 @@ def test_sharded_ntt_bitexact(rng, rns, coef):
 
     got_rt = np.asarray(inv(fwd(xs, tab_f, q, qi), tab_i, q, qi))
     np.testing.assert_array_equal(got_rt, x)
+
+
+@requires_8dev
+@pytest.mark.parametrize("rns,coef", [(1, 4), (4, 2)])
+def test_sharded_ntt_30bit_family(rng, rns, coef):
+    """The 30-bit family through the coefficient-sharded transform."""
+    n = 2048
+    q, psi, _, _, _ = get_params(n, "30bit")
+    tables = ntt.NTTTables.build([q] * rns, [psi] * rns, n)
+    ms = modmath.ModulusSet.from_moduli([q] * rns)
+    x = rng.integers(0, q, (rns, n), dtype=np.uint64)
+    ref = np.asarray(ntt.ntt_forward_jit(jnp.asarray(x), tables, ms))
+    m = mesh_mod.make_mesh(rns=rns, coef=coef)
+    xs = jax.device_put(jnp.asarray(x),
+                        mesh_mod.residue_sharding(m, shard_coef=True))
+    tab_f = jax.device_put(tables.psi_mont, mesh_mod.table_sharding(m))
+    tab_i = jax.device_put(tables.psiinv_mont, mesh_mod.table_sharding(m))
+    qq = jax.device_put(ms.q, mesh_mod.const_sharding(m))
+    qi = jax.device_put(ms.qinv_neg, mesh_mod.const_sharding(m))
+    got = sharded.sharded_ntt_forward(m, n)(xs, tab_f, qq, qi)
+    np.testing.assert_array_equal(np.asarray(got), ref)
+    back = sharded.sharded_ntt_inverse(m, n)(got, tab_i, qq, qi)
+    np.testing.assert_array_equal(np.asarray(back), x)
 
 
 @requires_8dev
@@ -103,12 +126,13 @@ def test_primegen_params_roundtrip(rng):
 
 def test_pod_mesh_single_process():
     """multihost.pod_mesh lays ('rns', 'coef') over all runtime devices
-    (single-process here: 8 virtual CPU devices)."""
+    (single-process here: 8 virtual CPU devices), all on 'rns' unless
+    'coef' is asked for."""
     import jax
-    from ntt_cuda_tpu.parallel import multihost
+    from ntt_bfv.parallel import multihost
     mesh = multihost.pod_mesh()
     assert mesh.axis_names == ("rns", "coef")
-    assert mesh.devices.size == len(jax.devices())
+    assert mesh.devices.shape == (len(jax.devices()), 1)
     mesh2 = multihost.pod_mesh(rns=4, coef=2)
     assert mesh2.devices.shape == (4, 2)
     assert multihost.is_coordinator()
